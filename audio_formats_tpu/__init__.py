@@ -1,16 +1,16 @@
-"""audio_formats_tpu — a TPU-native batched audio codec framework.
+"""audio_formats_tpu — a batched audio codec framework on JAX accelerators.
 
 A from-scratch reimplementation of the capabilities of AuburnSounds'
 audio-formats (D) as a two-stage pipeline: a host demux/entropy stage turning
 compressed byte-streams into dense tensors, and a device DSP stage of
 JAX/Pallas kernels (IMDCTs, filterbanks, integer LPC/LMS scans, dither)
-batched over many streams and sharded over TPU meshes.
+batched over many streams and sharded over device meshes.
 
 Public surface (parity with the reference):
 
 * :class:`AudioStream` — open/read/write/seek/tell single-stream facade
 * :func:`save_as_wav`, :func:`to_wav` — one-shot encode helpers (package.d)
-* ``BatchDecoder`` (``audio_formats_tpu.parallel``) — the TPU-first batched
+* ``BatchDecoder`` (``audio_formats_tpu.parallel``) — the batched
   decode API (the reference is strictly single-stream; this is the new core)
 """
 

@@ -4,7 +4,7 @@ Mirrors the reference's public surface (stream.d:36-67):
 ``AudioFileFormat``, ``AudioSampleFormat``, ``EncodingOptions``.
 
 The reference selects codecs at *build* time via dub configurations
-(dub.json:6-22, license-driven).  The TPU framework replaces that with a
+(dub.json:6-22, license-driven).  This framework replaces that with a
 runtime :class:`CodecConfig`, defaulting to everything enabled.
 """
 

@@ -1,4 +1,4 @@
-"""Error model for the TPU-native audio framework.
+"""Error model for the batched audio framework.
 
 The reference library is ``nothrow @nogc``: errors are a sticky per-stream flag
 plus a static message (see /root/reference/source/audioformats/internals.d:16-23

@@ -1,14 +1,19 @@
 """ctypes bindings for the native host entropy stage (src/af_host.cc).
 
-The library compiles lazily on first import (g++ -O3 -shared) and is cached
-next to the source.  Set AF_TPU_NO_NATIVE=1 to force the pure-Python
-reference paths (models fall back automatically if the toolchain or binary
-is unavailable).  Tests assert native == Python bit-for-bit.
+The library compiles lazily on first use (g++ -O3 -march=native -shared)
+into ``build/`` beside this file.  Its file name carries a key hashed from
+the source, the flags, the compiler's version and the target that
+``-march=native`` resolves to on this host, so a binary built by another
+compiler or for another CPU is never loaded: it simply has another name.
+Set AF_TPU_NO_NATIVE=1 to force the pure-Python reference paths (models fall
+back automatically if the toolchain is unavailable; ``build_error()`` says
+why).  Tests assert native == Python bit-for-bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -17,61 +22,81 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "af_host.cc")
-_SO = os.path.join(_DIR, "src", "af_host.so")
+BUILD_DIR = os.path.join(_DIR, "build")
 
 _lock = threading.Lock()
 _lib = None
 _tables_loaded = False
+_build_error = None
 
 
-def _build() -> bool:
-    try:
-        src_mtime = os.path.getmtime(_SRC)
-        tag = _SO + ".flags"
-        cur = os.environ.get("AF_TPU_NATIVE_CFLAGS", "")
-        prev = open(tag).read() if os.path.exists(tag) else ""
-        if (os.path.exists(_SO) and os.path.getmtime(_SO) >= src_mtime
-                and cur == prev):
-            return True
-        # -ffp-contract=off: no FMA contraction, so float expressions round
-        # exactly like the numpy reference paths (bit-for-bit A/B tests)
-        flags = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
-        extra = os.environ.get("AF_TPU_NATIVE_CFLAGS")
-        if extra:
-            # sanitizer / instrumentation hook (tools/native_sanitize.sh)
-            flags += extra.split()
-        res = subprocess.run(
-            ["g++", "-march=native"] + flags + ["-o", _SO, _SRC],
-            capture_output=True,
-            timeout=120,
-        )
-        if res.returncode != 0:
-            res = subprocess.run(  # retry without -march=native
-                ["g++"] + flags + ["-o", _SO, _SRC],
-                capture_output=True,
-                timeout=120,
-            )
-        if res.returncode == 0:
-            with open(tag, "w") as f:
-                f.write(cur)
-        return res.returncode == 0
-    except Exception:
-        return False
+def _flags() -> list:
+    # -ffp-contract=off: no FMA contraction, so float expressions round
+    # exactly like the numpy reference paths (bit-for-bit A/B tests)
+    flags = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
+    # sanitizer / instrumentation hook (tools/native_sanitize.sh)
+    return flags + os.environ.get("AF_TPU_NATIVE_CFLAGS", "").split()
+
+
+def build_key(flags: list) -> str:
+    """Hash of everything the binary depends on: source, flags, compiler
+    version, and the target ``-march=native`` resolves to here (the
+    compiler's own ``-v`` trace of a native preprocess names it)."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(flags).encode())
+
+    def run(*args):
+        return subprocess.run(["g++", *args], input=b"", capture_output=True,
+                              timeout=60, check=True)
+
+    h.update(run("--version").stdout)
+    trace = run("-march=native", "-E", "-v", "-x", "c++", "-").stderr
+    h.update(b"\n".join(line for line in trace.splitlines()
+                        if b"cc1plus" in line))
+    return h.hexdigest()[:16]
+
+
+def lib_path(key: str) -> str:
+    return os.path.join(BUILD_DIR, f"af_host-{key}.so")
+
+
+def _build() -> str:
+    """Path of the library for this host, compiling it if absent."""
+    flags = _flags()
+    path = lib_path(build_key(flags))
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders (test
+    # workers) never load a half-written file
+    tmp = f"{path}.{os.getpid()}.tmp"
+    res = subprocess.run(["g++"] + flags + ["-o", tmp, _SRC],
+                         capture_output=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError("g++ failed: " + res.stderr.decode()[-2000:])
+    os.replace(tmp, path)
+    return path
+
+
+def build_error():
+    """Why get_lib() returned None, or None if it did not."""
+    return _build_error
 
 
 def get_lib():
     """Returns the loaded library or None (fallback to Python paths)."""
-    global _lib, _tables_loaded
+    global _lib, _tables_loaded, _build_error
     if os.environ.get("AF_TPU_NO_NATIVE"):
         return None
     with _lock:
         if _lib is not None:
             return _lib
-        if not _build():
-            return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(_build())
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _build_error = f"{type(e).__name__}: {e}"
             return None
         i8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)

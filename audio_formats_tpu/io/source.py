@@ -1,4 +1,4 @@
-"""Byte-stream abstraction — the TPU framework's equivalent of io.d.
+"""Byte-stream abstraction — this framework's equivalent of io.d.
 
 The reference abstracts I/O as seven pull-style callbacks
 (io.d:7-13, ``IOCallbacks`` io.d:16) so codecs never see files; concrete

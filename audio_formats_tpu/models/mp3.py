@@ -1025,8 +1025,7 @@ class Mp3Decoder:
         return tensors, fb
 
     # frames per device call on the single-stream facade: per-frame
-    # dispatch pays one host<->device round-trip per 26 ms of audio, which
-    # dominates wall-clock on remote-attached devices
+    # dispatch pays one host<->device round-trip per 26 ms of audio
     _FACADE_WINDOW = 64
 
     def _decode_l3_window(self):

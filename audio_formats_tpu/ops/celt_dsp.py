@@ -1,8 +1,8 @@
 """Device DSP for CELT synthesis (SURVEY.md §2: dopus row — "device: CELT
 denormalize + IMDCT + OLA + deemphasis scan").
 
-The IMDCT half-transform is a dense [blocksize, blocksize] matmul (MXU
-path; the basis is the closed form of the reference's pre-twiddle + DFT +
+The IMDCT half-transform is a dense [blocksize, blocksize] matmul (the
+basis is the closed form of the reference's pre-twiddle + DFT +
 post-twiddle, models/celt.py:imdct_half), window overlap-add is unrolled
 over the (static) block count, and deemphasis is a first-order linear
 recurrence evaluated with an associative scan.  The pitch postfilter is

@@ -98,69 +98,17 @@ def qoa_decode_scan(history, weights, dequantized):
     return jnp.swapaxes(out, 0, 1)
 
 
-def _lms_pallas_kernel(hw_ref, deq_ref, out_ref):
-    """Pallas LMS decode: lanes on the 128-wide vector axis, the 4-tap
-    history and weights carried in registers; identical int32 wraparound
-    semantics to qoa_decode_scan."""
-    from jax.experimental import pallas as pl
-
-    n_t = deq_ref.shape[0]
-
-    def body(t, carry):
-        h, w = carry
-        p = jnp.sum(h * w, axis=0, keepdims=True) >> 13
-        r = deq_ref[pl.ds(t, 1), :]
-        recon = jnp.clip(p + r, -32768, 32767)
-        delta = r >> 4
-        w = w + jnp.where(h < 0, -delta, delta)
-        h = jnp.concatenate([h[1:], recon], axis=0)
-        out_ref[pl.ds(t, 1), :] = recon
-        return (h, w)
-
-    jax.lax.fori_loop(0, n_t, body, (hw_ref[0:4, :], hw_ref[4:8, :]))
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def qoa_decode_pallas(history, weights, dequantized, interpret=False):
-    """Pallas-TPU variant of qoa_decode_scan (same contract, bit-identical;
-    tests assert equality against the lax.scan reference)."""
-    from jax.experimental import pallas as pl
-
-    L, T = dequantized.shape
-    Lp = (L + 127) // 128 * 128
-    deq_t = jnp.zeros((T, Lp), jnp.int32).at[:, :L].set(dequantized.T)
-    hw = jnp.zeros((8, Lp), jnp.int32)
-    hw = hw.at[0:4, :L].set(jnp.asarray(history).T)
-    hw = hw.at[4:8, :L].set(jnp.asarray(weights).T)
-    out = pl.pallas_call(
-        _lms_pallas_kernel,
-        out_shape=jax.ShapeDtypeStruct((T, Lp), jnp.int32),
-        grid=(Lp // 128,),
-        in_specs=[
-            pl.BlockSpec((8, 128), lambda i: (0, i)),
-            pl.BlockSpec((T, 128), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((T, 128), lambda i: (0, i)),
-        interpret=interpret,
-    )(hw, deq_t)
-    return out[:, :L].T
-
-
 @jax.jit
 def decode_slices(history, weights, scalefactors, codes):
     """Decode QOA slices: dequantize 3-bit codes then run the LMS scan.
 
     scalefactors: [L, S] int32; codes: [L, S, 20] int32 (0..7)
     Returns samples [L, S*20] int32.
-
-    The lax.scan stays the production path: the Pallas variant above
-    measured 6.0 vs 5.7 ms at [512, 5120] on a real chip — a 4-tap
-    recurrence is per-step-overhead bound either way, unlike the 32-tap
-    FLAC LPC where the Pallas kernel wins 1.6× (ops/lpc.py).
     """
-    # dequant via one-hot select over the 16x8 table (TPU element gathers
-    # run ~44 ns/element; compare+select rides the VPU instead).  Inputs
-    # may arrive as int8 (the batched scheduler ships compact payloads).
+    # dequant via a 128-way compare+select over the 16x8 table instead of
+    # a gather (a choice made for the previous accelerator; whether a
+    # plain gather is faster on the GPU is not measured).  Inputs may
+    # arrive as int8 (the batched scheduler ships compact payloads).
     idx = (
         scalefactors[..., None].astype(jnp.int32) * 8
         + codes.astype(jnp.int32)
@@ -227,14 +175,9 @@ def qoa_encode_frame_scan(samples, history, weights, frame_len):
             n = (residual * recip[None, :] + (1 << 15)) >> 16
             n = n + _sign(residual) - _sign(n)
             clamped = jnp.clip(n, -8, 8)
-            # QUANT_TAB[v+8] without a gather (element gathers cost ~44
-            # ns/element on TPU and sit on the 5120-step critical path;
-            # compare+select rides the VPU): the table is symmetric —
-            # code = 2*min(|v|+1, 7)//2 ... expressed exactly as
-            # magnitude bucket m = min((|v|+1)>>1, 3) roughly; instead
-            # derive from the spec table's structure:
-            #   |v|: 0->0, 1->{0 if v>0 else 1}... non-uniform, so use a
-            # 17-way constant select (16 compares, all vectorized).
+            # QUANT_TAB[v+8] as a 17-way constant select instead of a
+            # gather on the 5120-step critical path (the table is not
+            # uniform enough for a closed form).
             quantized = jnp.zeros_like(clamped)
             for k in range(17):
                 quantized = jnp.where(clamped == k - 8,
@@ -266,8 +209,7 @@ def qoa_encode_frame_scan(samples, history, weights, frame_len):
         mlo = jnp.min(lo_masked, axis=1, keepdims=True)
         best = jnp.argmax((err_hi == mhi) & (lo_masked == mlo), axis=1)  # [L]
 
-        # select the winning candidate via one-hot mask + sum (again: no
-        # gathers — take_along_axis lowers to element gathers on TPU)
+        # select the winning candidate via one-hot mask + sum (no gather)
         onehot = (jnp.arange(16, dtype=jnp.int32)[None, :]
                   == best[:, None])[..., None]  # [L, 16, 1]
         best_codes = jnp.sum(jnp.where(onehot, codes, 0), axis=1)  # [L, 20]

@@ -9,8 +9,10 @@ FIXED / LPC subframes all reduce to this one recurrence:
 * LPC               → coded coefficients and shift
 
 The recurrence's per-step truncating shift makes it non-linear, so no
-parallel-scan shortcut preserves bit-exactness; it runs as a `lax.scan` over
-time, vectorized across (streams × channels) lanes.
+parallel-scan shortcut preserves bit-exactness; it runs sequentially over
+time, vectorized across (streams × channels) lanes: as a `lax.scan`
+(`flac_lpc_scan`, the reference and the CPU path) or, on the GPU, as one
+kernel that keeps the time loop inside (`flac_lpc_pallas`).
 
 Bit-width dispatch mirrors drflac (drflac.d:1055-1110): subframes with
 bits-per-sample ≤ 16 use int32 math (wraparound semantics identical to the
@@ -27,6 +29,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu_triton
+from jax.sharding import NamedSharding, PartitionSpec
 
 # Fixed-predictor coefficients (drflac.d:1397-equivalent; FLAC spec):
 # s[t] = k-th order polynomial predictor + residual, shift 0.
@@ -52,7 +56,7 @@ def flac_lpc_scan(residual, coeffs, order, shift, exact=None):
               prediction (subframe bps > 16, drflac.d:1055-1110).  False
               lanes use int32 wraparound, bit-identical to the 32-bit path.
 
-    The exact path avoids 64-bit ints (slow/emulated on TPU) by splitting
+    The exact path avoids 64-bit ints (off in JAX by default) by splitting
     coefficients into 8-bit limbs: A = Σ (c>>8)·s, B = Σ (c&255)·s — both
     int32-safe for |s| < 2^18 at the maximum order (32 taps × 255 × 2^18 ≈
     2^31), i.e. ≤18-bit subframes incl. the +1-bit side channels of 16-bit
@@ -103,49 +107,68 @@ def flac_lpc_scan(residual, coeffs, order, shift, exact=None):
     return jnp.swapaxes(out, 0, 1)
 
 
-def _lpc_pallas_kernel(params_ref, chi_ref, clo_ref, res_ref, out_ref):
-    """Per-lane-block LPC scan: lanes ride the 128-wide vector axis, the
-    32-tap history lives in registers as the fori_loop carry, and every
-    timestep is pure VPU int32 math — no per-step XLA loop overhead.
-    Semantics identical to flac_lpc_scan (same limb-split arithmetic)."""
-    order = params_ref[0:1, :]
-    shift = params_ref[1:2, :]
-    exact = params_ref[2:3, :]
-    chi = chi_ref[:]
-    clo = clo_ref[:]
+#: lanes per program of the GPU kernel, one lane per thread (tuned on an
+#: H100: 32-128 lanes and 4-16 steps per load all ran within noise)
+LPC_BLOCK_LANES = 64
+#: residual rows each loop iteration loads before its recurrence steps
+LPC_STEPS_PER_LOAD = 8
+
+
+def _lpc_kernel(params_ref, chi_ref, clo_ref, res_ref, out_ref):
+    """One program = one block of lanes, the whole time loop inside it.
+
+    The recurrence is sequential in time, so a per-step XLA loop pays a
+    launch per sample; here the launch is paid once.  The 32-tap history
+    is a tuple of per-lane vectors (a register shift, no data movement),
+    and residuals are time-major, so each step's row load is coalesced
+    across lanes.  Each loop iteration loads LPC_STEPS_PER_LOAD rows up
+    front, then runs that many steps.  Arithmetic is flac_lpc_scan's, term
+    for term; integer wraparound makes the summation order irrelevant, and
+    the sums run oldest tap first so only the last product waits on the
+    sample just produced."""
+    order = params_ref[0, :]
+    shift = params_ref[1, :]
+    exact = params_ref[2, :] != 0
+    chi = [chi_ref[j, :] for j in range(MAX_ORDER)]
+    clo = [clo_ref[j, :] for j in range(MAX_ORDER)]
     sm8 = jnp.maximum(shift - 8, 0)
     s8m = jnp.maximum(8 - shift, 0)
     ge8 = shift >= 8
-    n_t = res_ref.shape[0]
+    U = LPC_STEPS_PER_LOAD
 
-    def body(t, h):  # h: [MAX_ORDER, 128], h[j] = s[t-1-j]
-        A = jnp.sum(h * chi, axis=0, keepdims=True)
-        B = jnp.sum(h * clo, axis=0, keepdims=True)
-        hi = A + (B >> 8)
-        lo = B & 255
-        pred_exact = jnp.where(ge8, hi >> sm8, (hi << s8m) + (lo >> shift))
-        pred_wrap = ((A << 8) + B) >> shift
-        pred = jnp.where(exact != 0, pred_exact, pred_wrap)
-        r = res_ref[pl.ds(t, 1), :]
-        s = jnp.where(t < order, r, r + pred)
-        out_ref[pl.ds(t, 1), :] = s
-        return jnp.concatenate([s, h[:-1]], axis=0)
+    def body(i, h):  # h[j] = s[t-1-j], one [lanes] vector per tap
+        t0 = i * U
+        rows = [res_ref[t0 + u, :] for u in range(U)]
+        for u in range(U):
+            A = h[MAX_ORDER - 1] * chi[MAX_ORDER - 1]
+            B = h[MAX_ORDER - 1] * clo[MAX_ORDER - 1]
+            for j in range(MAX_ORDER - 2, -1, -1):
+                A = A + h[j] * chi[j]
+                B = B + h[j] * clo[j]
+            hi = A + (B >> 8)
+            lo = B & 255
+            pred_exact = jnp.where(ge8, hi >> sm8,
+                                   (hi << s8m) + (lo >> shift))
+            pred_wrap = ((A << 8) + B) >> shift
+            pred = jnp.where(exact, pred_exact, pred_wrap)
+            r = rows[u]
+            s = jnp.where(t0 + u < order, r, r + pred)
+            out_ref[t0 + u, :] = s
+            h = (s,) + h[:-1]
+        return h
 
-    jax.lax.fori_loop(
-        0, n_t, body, jnp.zeros((MAX_ORDER, 128), jnp.int32))
+    n_iter = res_ref.shape[0] // U
+    zero = jnp.zeros((LPC_BLOCK_LANES,), jnp.int32)
+    jax.lax.fori_loop(0, n_iter, body, (zero,) * MAX_ORDER)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def flac_lpc_pallas(residual, coeffs, order, shift, exact=None,
-                    interpret=False):
-    """Pallas-TPU variant of flac_lpc_scan: same [L, B] contract and
-    bit-identical results (tests/test_flac.py asserts equality against
-    the lax.scan reference)."""
+def _lpc_kernel_call(residual, coeffs, order, shift, exact, interpret):
     L, B = residual.shape
-    if exact is None:
-        exact = jnp.zeros((L,), bool)
-    Lp = (L + 127) // 128 * 128
-    res_t = jnp.zeros((B, Lp), jnp.int32).at[:, :L].set(residual.T)
+    BL, U = LPC_BLOCK_LANES, LPC_STEPS_PER_LOAD
+    Lp = -(-L // BL) * BL
+    Bp = -(-B // U) * U
+    res_t = jnp.zeros((Bp, Lp), jnp.int32).at[:B, :L].set(residual.T)
     chi_t = jnp.zeros((MAX_ORDER, Lp), jnp.int32).at[:, :L].set(
         (coeffs >> 8).T)
     clo_t = jnp.zeros((MAX_ORDER, Lp), jnp.int32).at[:, :L].set(
@@ -154,42 +177,59 @@ def flac_lpc_pallas(residual, coeffs, order, shift, exact=None,
     params = params.at[0, :L].set(order)
     params = params.at[1, :L].set(shift)
     params = params.at[2, :L].set(exact.astype(jnp.int32))
-    grid = Lp // 128
     out = pl.pallas_call(
-        _lpc_pallas_kernel,
-        out_shape=jax.ShapeDtypeStruct((B, Lp), jnp.int32),
-        grid=(grid,),
+        _lpc_kernel,
+        out_shape=jax.ShapeDtypeStruct((Bp, Lp), jnp.int32),
+        grid=(Lp // BL,),
         in_specs=[
-            pl.BlockSpec((4, 128), lambda i: (0, i)),
-            pl.BlockSpec((MAX_ORDER, 128), lambda i: (0, i)),
-            pl.BlockSpec((MAX_ORDER, 128), lambda i: (0, i)),
-            pl.BlockSpec((B, 128), lambda i: (0, i)),
+            pl.BlockSpec((4, BL), lambda i: (0, i)),
+            pl.BlockSpec((MAX_ORDER, BL), lambda i: (0, i)),
+            pl.BlockSpec((MAX_ORDER, BL), lambda i: (0, i)),
+            pl.BlockSpec((Bp, BL), lambda i: (0, i)),
         ],
-        out_specs=pl.BlockSpec((B, 128), lambda i: (0, i)),
+        out_specs=pl.BlockSpec((Bp, BL), lambda i: (0, i)),
+        backend="triton",
+        compiler_params=plgpu_triton.CompilerParams(
+            num_warps=BL // 32, num_stages=1),
         interpret=interpret,
+        name="flac_lpc",
     )(params, chi_t, clo_t, res_t)
-    return out[:, :L].T
+    return out[:B, :L].T
+
+
+def flac_lpc_pallas(residual, coeffs, order, shift, exact=None,
+                    interpret=False):
+    """GPU kernel (Pallas, Triton route) with flac_lpc_scan's [L, B]
+    contract and bit-identical results.
+
+    Lanes are independent, so a batch sharded over a mesh's leading axis
+    runs the kernel per shard under shard_map instead of gathering every
+    lane onto each device."""
+    residual = jnp.asarray(residual)
+    if exact is None:
+        exact = jnp.zeros((residual.shape[0],), bool)
+    fn = functools.partial(_lpc_kernel_call, interpret=interpret)
+    sh = getattr(residual, "sharding", None)
+    if (isinstance(sh, NamedSharding) and sh.mesh.size > 1
+            and len(sh.spec) and sh.spec[0] is not None):
+        lane = PartitionSpec(sh.spec[0])
+        fn = jax.shard_map(fn, mesh=sh.mesh, in_specs=lane, out_specs=lane,
+                           check_vma=False)
+    return fn(residual, coeffs, order, shift, exact)
 
 
 def default_platform() -> str:
     """Platform of the device computations actually land on (honours
-    jax_default_device, which CI pins to CPU while a TPU plugin is
-    loaded)."""
+    ``jax.default_device``, which pins a computation to one backend)."""
     d = jax.config.jax_default_device
     return d.platform if d is not None else jax.default_backend()
 
 
 def flac_lpc(residual, coeffs, order, shift, exact=None):
-    """Dispatch: Pallas kernel on TPU backends, lax.scan elsewhere
-    (AF_TPU_NO_PALLAS forces the scan)."""
-    import os
-
-    if (not os.environ.get("AF_TPU_NO_PALLAS")
-            and default_platform() not in ("cpu",)):
-        try:
-            return flac_lpc_pallas(residual, coeffs, order, shift, exact)
-        except Exception:
-            pass
+    """Dispatch by platform: the GPU kernel on ``gpu``, the scan on
+    ``cpu`` (and any other backend)."""
+    if default_platform() == "gpu":
+        return flac_lpc_pallas(residual, coeffs, order, shift, exact)
     return flac_lpc_scan(residual, coeffs, order, shift, exact)
 
 
@@ -278,8 +318,8 @@ def flac_unpack_residuals(packed, warm, order, w: int, n: int):
     bytes ~2.5–4×.  Width-uniform packing makes the unpack pure STATIC
     shift arithmetic — 32 samples span exactly w words, so a reshape to
     [L, n/32 groups, w words] + 32 statically-unrolled extracts recovers
-    every sample with no gathers (measured XLA element gathers would cost
-    more than the bytes saved).
+    every sample with no gathers (gathers were the slower choice on the
+    previous accelerator; not re-measured on the GPU).
 
     packed: [L, >= ceil(n·w/32)] uint32;  warm: [L, 32] int32 (samples at
     positions < min(order, 32); constant/verbatim lanes use order = n and
@@ -324,7 +364,8 @@ def flac_merge_overflow(res_small, raw, idx, Lb: int):
     by idx [L] (0 = not overflowing) here.  The select is an exact
     one-hot matmul over two uint16 planes (values < 2^16 are exact in
     f32 and each one-hot row has a single 1, so no rounding anywhere);
-    a per-row dynamic gather would be slower on this chip.
+    chosen over a per-row gather on the previous accelerator, not
+    re-measured on the GPU.
     """
     L = res_small.shape[0]
     ru = jax.lax.bitcast_convert_type(raw, jnp.uint32)

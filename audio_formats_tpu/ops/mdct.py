@@ -3,7 +3,7 @@
 The Vorbis IMDCT (stb_vorbis2.d:1941-2250's radix kernel) is here a single
 [N/2, N] matmul per block size — block sizes are few (typically 256/2048 per
 stream, spec range 64..8192) and the matrices are built lazily per size, so
-the MXU does all the work with zero twiddle bookkeeping.  Spec convention
+one matmul does all the work with zero twiddle bookkeeping.  Spec convention
 (Vorbis I spec §4.3.6 / MDCT with N output samples from N/2 coefficients):
 
     y[n] = Σ_{k<N/2} X[k] · cos(π/(2N) · (2n + 1 + N/2) · (2k + 1))
@@ -109,6 +109,6 @@ def overlap_add(y: np.ndarray, prev: np.ndarray, left_start: int) -> None:
 @functools.partial(jax.jit, static_argnames=("n",))
 def imdct_batch(X, n: int):
     """Batched IMDCT for the lockstep scheduler: [L, n/2] spectra (stacked
-    lane-channels) → [L, n] raw time windows in one MXU matmul."""
+    lane-channels) → [L, n] raw time windows in one matmul."""
     M = jnp.asarray(imdct_matrix(n))
     return jnp.dot(X, M, precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,6 @@
 """MP3 Layer III device DSP: dequant → stereo → antialias → IMDCT → synthesis.
 
-This is the flagship MXU pipeline.  Everything after the host's Huffman
+This is the flagship matmul pipeline.  Everything after the host's Huffman
 stage is dense linear algebra over [batch, channel] lanes:
 
 * **Requantize** — sign(q)·|q|^(4/3) scaled by host-computed per-coefficient
@@ -22,7 +22,7 @@ stage is dense linear algebra over [batch, channel] lanes:
 * **Polyphase synthesis** — the 32-band filterbank as a 17-tap matrix FIR
   over granule slots: pcm_t = Σ_r W_r·S_{t−r}, with W extracted offline from
   the reference's linear synthesis flow (tools/gen_mp3_synth.py, verified to
-  3.6e-14).  One [18, 17·32]×[17·32, 32] matmul per granule-lane: pure MXU.
+  3.6e-14).  One [18, 17·32]×[17·32, 32] matmul per granule-lane.
 
 Carried per-stream state: IMDCT overlap [C, 32, 18] and the last 16 subband
 slot vectors S [C, 16, 32] (equivalent to minimp3's mdct_overlap + qmf_state,
@@ -233,9 +233,9 @@ def mp3_frame_dsp(q, scale, mix, perm, aa_bands, wtype, overlap, shist,
 # ---------------------------------------------------------------------------
 # v2: scan-free window DSP.
 #
-# The per-granule scan in mp3_frame_dsp keeps every intermediate in HBM per
-# step (~0.5 ms/granule at B=1024 — HBM-traffic-bound, 48 ms per 96-granule
-# window).  But the pipeline is *not* actually recurrent:
+# The per-granule scan in mp3_frame_dsp keeps every intermediate in device
+# memory per step (memory-traffic-bound, one step per granule).  But the
+# pipeline is *not* actually recurrent:
 #
 #   * the IMDCT+OLA matrix maps (coeffs ‖ overlap) -> (pcm ‖ overlap'), and
 #     by construction overlap' = V(w_g)·c_g depends ONLY on the current
@@ -271,8 +271,9 @@ SYNTH_CONV_K = np.ascontiguousarray(
 def _build_synth_toeplitz() -> np.ndarray:
     """Granule-blocked Toeplitz form of the 17-tap synthesis FIR:
     pcm[g·18+t, j] = Σ_{u,k} Swin[g, u, k]·W_blk[u·32+k, t·32+j] where
-    Swin[g] = slot window [g·18, g·18+34) of (shist ‖ S).  One big MXU
-    matmul replaces the conv (whose TPU lowering materializes im2col)."""
+    Swin[g] = slot window [g·18, g·18+34) of (shist ‖ S).  One big
+    matmul replaces the conv (whose lowering on the previous accelerator
+    materialized im2col)."""
     W_blk = np.zeros((34 * 32, 18 * 32), np.float32)
     for t in range(18):
         for u in range(t, t + 17):
@@ -317,7 +318,8 @@ def mp3_window_dsp(q, scale, mix, perm, aa_bands, wtype, overlap, shist,
     if use_perm:
         xg = jnp.take_along_axis(xg, perm, axis=-1)
     # antialias, batched over all granules.  Scatter-free: rebuild the
-    # 18-coeff axis from slices (TPU scatters via .at[].set are pathological)
+    # 18-coeff axis from slices (an .at[].set scatter per step was
+    # pathological on the previous accelerator)
     xb = xg.reshape(B, ngr, nch, 32, 18)
     top = xb[..., :8]                  # coeffs 0..7 of every band
     bot = xb[..., 17:9:-1]             # coeffs 17..10 (reversed)
@@ -343,9 +345,8 @@ def mp3_window_dsp(q, scale, mix, perm, aa_bands, wtype, overlap, shist,
     # (Computing all four types side by side and selecting after
     # materialized a [B,G,nch,32,4,36] intermediate — 1.8 GB at the
     # production window — for 4x the memory traffic.)  HIGHEST stays:
-    # Precision.HIGH was A/B'd (~1 ms on the fused window, noise-level)
-    # and on the CPU backend it broke the 4e-6 sharded==unsharded
-    # lattice contract (rel 2.1e-5), so the cheap pass isn't worth it.
+    # on the CPU backend Precision.HIGH broke the 4e-6
+    # sharded==unsharded lattice contract (rel 2.1e-5).
     out = jnp.zeros(xb.shape[:4] + (36,), jnp.float32)
     for w in range(4):
         xw = jnp.where((wtype == w)[..., None], xb, 0.0)
@@ -364,11 +365,11 @@ def mp3_window_dsp(q, scale, mix, perm, aa_bands, wtype, overlap, shist,
     idx = n_act.reshape(B, 1, 1, 1, 1).astype(jnp.int32)
     new_overlap = jnp.take_along_axis(ov_stack, idx, axis=1)[:, 0]
     # frequency inversion + to slot layout [B, nch, G*18, 32]
-    # (an A/B of a band-major formulation that folded the signs and the
-    # slot relayout into split Toeplitz matrices measured WORSE fused —
-    # 101 vs 93 ms blocked at the production window: XLA's layout
-    # assignment already absorbs these transposes into the dot operands,
-    # while the explicit prev-granule concat added a real pass)
+    # (a band-major formulation that folded the signs and the slot
+    # relayout into split Toeplitz matrices was slower fused on the
+    # previous accelerator: XLA's layout assignment already absorbs these
+    # transposes into the dot operands, while the explicit prev-granule
+    # concat added a real pass)
     S = jnp.swapaxes(grb, -1, -2) * _SIGN_T[None, None, None]
     S = jnp.swapaxes(S, 1, 2).reshape(B, nch, ngr * 18, 32)
     Sfull = jnp.concatenate([shist, S], axis=2)  # [B, nch, 16+18G, 32]

@@ -9,13 +9,13 @@ Bit-exactness strategy
 * **Decode** (int → float32): the reference computes ``float(double(s) / scale)``
   (wav.d:297-330).  A *correctly rounded* float32 division ``f32(s) / f32(scale)``
   is bit-identical — verified exhaustively for u8/s16/s24 and by sampling for
-  s32 (see tests/test_pcm.py).  TPU's hardware f32 divide is NOT correctly
-  rounded, so the kernel refines it: with scale = 2^m - 1 the residual
+  s32 (see tests/test_pcm.py).  An accelerator's f32 divide need not be
+  correctly rounded, so the kernel refines it: with scale = 2^m - 1 the residual
   ``s - q0*scale`` is computable exactly in f32 (``q0*2^m`` is exact, then
   TwoSum), and one Newton correction lands within 2^-20 ulp of the true
   quotient.  Since ``s/(2^m - 1)`` can never be an exact rounding midpoint
   (odd denominator), the corrected result is correctly rounded for every
-  integer input — bit-exact to the reference on TPU and CPU alike.
+  integer input — bit-exact to the reference on every backend.
 
 * **Encode** (float32 → int, no dither): the reference rounds in double:
   ``trunc(bias + 0.5 + x*scale) - bias`` == ``floor(x*scale + 0.5)`` for
@@ -63,8 +63,8 @@ def _pad_len(n: int) -> int:
 def _exact_div_pow2m1(xf: jax.Array, kind: str) -> jax.Array:
     """Correctly-rounded f32 division of integer-valued ``xf`` by 2^m - 1.
 
-    XLA's f32 divide is not correctly rounded on TPU (nor, for some scales, on
-    CPU).  Because the divisor is 2^m - 1, the product q0*(2^m - 1) =
+    XLA's f32 divide is not guaranteed correctly rounded on every backend
+    (on the CPU, for some scales, it is not).  Because the divisor is 2^m - 1, the product q0*(2^m - 1) =
     q0*2^m - q0 is an exact two-float expansion (power-of-two scaling is
     exact), so the residual is exact and one correction step yields the
     correctly rounded quotient (no rounding midpoints exist for odd divisors).
@@ -90,8 +90,9 @@ def _int_to_f32(x: jax.Array, kind: str) -> jax.Array:
 def int_pcm_to_float(x: np.ndarray, kind: str, dtype=np.float32) -> np.ndarray:
     """Convert int PCM (int32 array; u8 passed as raw 0..255) to float.
 
-    float32 goes through the device kernel; float64 uses the host (TPU has no
-    native f64) and matches the reference's double math directly.
+    float32 goes through the device kernel; float64 uses the host (JAX runs
+    without 64-bit floats by default) and matches the reference's double
+    math directly.
     """
     n = x.shape[0]
     if dtype == np.float64 or n == 0:

@@ -7,10 +7,10 @@ region [left_start, right_start) is returned, and [right_start, right_end)
 is saved as the next lap.  The host facade does this per packet in numpy
 (models/vorbis.py:_finish_packet); this module runs the SAME chain for a
 whole lockstep group on device, so with ``output="device"`` decoded Vorbis
-PCM never leaves the chip (the natural sink of a TPU pipeline — parity with
-the MP3/FLAC/QOA device-resident paths).
+PCM never leaves the device (the natural sink of a decode pipeline — parity
+with the MP3/FLAC/QOA device-resident paths).
 
-TPU-native formulation (no gathers, no dynamic shapes):
+Formulation (no gathers, no dynamic shapes):
 
 * Both block sizes' IMDCTs run as dense matmuls over all K*L stacked
   lane-channel windows; the per-window block size picks between them with a

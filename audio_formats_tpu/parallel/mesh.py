@@ -4,8 +4,8 @@ The framework's parallelism model (SURVEY.md §2.4): the unit of parallelism
 is *audio streams*.  All device tensors carry a leading [batch] axis sharded
 over the mesh's 'data' axis (pure DP — the only parallelism this domain
 rewards); the 'model' axis is available for channel/filterbank sharding of
-very wide configurations and keeps the mesh 2-D so multi-host topologies map
-cleanly onto ICI rings.
+very wide configurations.  The cards of one host are joined all to all, so
+the mesh's shape follows the algorithm alone.
 
 Collectives are whatever XLA inserts for the chosen shardings (psum for
 metric reductions in BatchDecoder.stats) — no hand-rolled transport layer.
@@ -22,33 +22,17 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
               model: int = 1, devices: Optional[Sequence] = None) -> Mesh:
-    """Create a ('data', 'model') mesh over the first n_devices devices.
-
-    Falls back to virtual CPU devices when the default platform has too few
-    chips (single-chip dev boxes, multi-chip dryruns): raises
-    ``jax_num_cpu_devices`` and uses ``jax.devices("cpu")``.
-    """
+    """Create a ('data', 'model') mesh over the first n_devices devices of
+    ``devices`` (default: the default platform's).  Raises when there are
+    too few; it never substitutes devices of another platform (a mesh of
+    virtual CPU devices is built by passing ``jax.devices("cpu")``)."""
     devs = list(devices) if devices is not None else jax.devices()
     n = n_devices or len(devs)
-    if len(devs) < n:
-        try:
-            jax.config.update("jax_num_cpu_devices", n)
-        except Exception:
-            # Backend already initialized: the update is a no-op, which is
-            # fine only if something earlier (conftest, XLA_FLAGS) already
-            # raised the CPU device count — verified loudly below.
-            pass
-        devs = jax.devices("cpu")
-        if len(devs) < n:
-            raise RuntimeError(
-                f"make_mesh needs {n} devices but only {len(devs)} CPU "
-                "devices exist and the CPU backend is already initialized; "
-                "set XLA_FLAGS=--xla_force_host_platform_device_count="
-                f"{n} (or jax_num_cpu_devices) before JAX's first backend "
-                "use"
-            )
     data = data or (n // model)
-    assert data * model <= len(devs), (data, model, len(devs))
+    if data * model > len(devs) or n > len(devs):
+        raise ValueError(
+            f"make_mesh needs {max(n, data * model)} devices, "
+            f"{len(devs)} {devs[0].platform if devs else ''} devices exist")
     arr = np.array(devs[: data * model]).reshape(data, model)
     return Mesh(arr, ("data", "model"))
 

@@ -1,10 +1,10 @@
-"""Batched TPU decode — the API this framework adds over the reference.
+"""Batched device decode — the API this framework adds over the reference.
 
 The reference is strictly single-stream (stream.d:31-33); its "batch" is a
 shell loop around examples/transcode (main.d:71-78).  Here N compressed
 streams of mixed formats decode in lockstep on the accelerator, and the
-PCM can stay device-resident — the natural sink of a TPU pipeline is a
-model on the same chips, and downloading PCM costs more than decoding it.
+PCM can stay device-resident — the natural sink of a decode pipeline is a
+model on the same card, and downloading PCM costs more than decoding it.
 
     python examples/batch_decode.py song1.mp3 take2.flac voice.opus ...
 

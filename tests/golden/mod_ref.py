@@ -19,7 +19,7 @@ def cell(sample=0, period=0, effect=0, param=0):
     ])
 
 
-def build_mod(patterns, order, samples, title=b"af-tpu test"):
+def build_mod(patterns, order, samples, title=b"af-ref test"):
     """patterns: list of [64][4] cells (bytes); order: list of pattern idx;
     samples: list of (np.int8 data, volume, finetune, loop_start, loop_len)."""
     out = bytearray()

@@ -153,7 +153,7 @@ def build_ogg_opus(packets, channels=1, preskip=312, final_granule=None,
     head = (b"OpusHead" + bytes([1, channels])
             + struct.pack("<H", preskip) + struct.pack("<I", 44100)
             + struct.pack("<h", gain_q8) + bytes([0]))
-    vendor = b"af-tpu"
+    vendor = b"af-ref"
     tags = (b"OpusTags" + struct.pack("<I", len(vendor)) + vendor
             + struct.pack("<I", 1)
             + struct.pack("<I", len(b"R128_TRACK_GAIN=-1024"))

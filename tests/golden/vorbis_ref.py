@@ -143,7 +143,7 @@ class Fixture:
         bw = _BW()
         for ch in b"\x03vorbis":
             bw.w(ch, 8)
-        vendor = b"af-tpu-fixture"
+        vendor = b"af-ref-fixture"
         bw.w(len(vendor), 32)
         for c in vendor:
             bw.w(c, 8)

@@ -8,7 +8,7 @@ import numpy as np
 
 
 def build_xm(patterns, order, instruments, channels=4, linear=True,
-             tempo=6, bpm=125, restart=0, name=b"af-tpu xm"):
+             tempo=6, bpm=125, restart=0, name=b"af-ref xm"):
     """patterns: list of [rows][channels] tuples
     (note, instr, volcol, fx, param); order: pattern indices;
     instruments: list of dicts:
@@ -21,7 +21,7 @@ def build_xm(patterns, order, instruments, channels=4, linear=True,
     out += b"Extended Module: "
     out += name.ljust(20, b"\0")[:20]
     out += bytes([0x1A])
-    out += b"af-tpu tracker".ljust(20, b"\0")[:20]
+    out += b"af-ref tracker".ljust(20, b"\0")[:20]
     out += struct.pack("<H", 0x0104)
     header = struct.pack(
         "<IHHHHHHHH", 276, len(order), restart, channels, len(patterns),

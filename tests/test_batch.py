@@ -122,8 +122,8 @@ def test_batch_layer2_matches_facade(rng):
 
 def test_flac_wasted_bits_overflow_rejected():
     """A subframe claiming wasted >= bps must raise AudioFormatError, not a
-    bare ValueError from a negative shift (ADVICE r1; reference behavior is
-    a decode error, drflac.d wasted-bits handling)."""
+    bare ValueError from a negative shift (reference behavior is a decode
+    error, drflac.d wasted-bits handling)."""
     import pytest
 
     from audio_formats_tpu.errors import AudioFormatError
@@ -143,7 +143,7 @@ def test_flac_wasted_bits_overflow_rejected():
 def test_group_failure_demotes_to_per_stream(rng, monkeypatch):
     """A failure inside a lockstep group path must not abort the batch: the
     group's lanes demote to the per-stream fallback and still decode
-    (ADVICE r1 error-lattice finding)."""
+    (the per-lane error lattice)."""
     streams = [_flac(rng, 3000 + 577 * i) for i in range(3)]
     dec = BatchDecoder(streams)
 

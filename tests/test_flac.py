@@ -236,15 +236,8 @@ def test_ogg_encapsulated_flac(rng):
     np.testing.assert_array_equal(out, _expected_float(pcm, 16))
 
 
-def test_pallas_lpc_matches_scan():
-    """The Pallas LPC kernel must be bit-identical to the lax.scan
-    reference (interpret mode on CPU; compiled on TPU backends)."""
-    import jax
-
-    from audio_formats_tpu.ops import lpc
-
-    rng = np.random.default_rng(11)
-    L, B = 13, 777
+def _lpc_case(seed, L, B):
+    rng = np.random.default_rng(seed)
     residual = rng.integers(-(1 << 17), 1 << 17, (L, B)).astype(np.int32)
     coeffs = np.zeros((L, 32), np.int32)
     order = rng.integers(0, 33, L).astype(np.int32)
@@ -252,11 +245,113 @@ def test_pallas_lpc_matches_scan():
         coeffs[l, : order[l]] = rng.integers(-(1 << 14), 1 << 14, order[l])
     shift = rng.integers(0, 16, L).astype(np.int32)
     exact = rng.integers(0, 2, L).astype(bool)
-    a = np.asarray(lpc.flac_lpc_scan(residual, coeffs, order, shift, exact))
-    interp = lpc.default_platform() == "cpu"
-    b = np.asarray(lpc.flac_lpc_pallas(residual, coeffs, order, shift,
-                                       exact, interpret=interp))
+    return residual, coeffs, order, shift, exact
+
+
+def test_pallas_lpc_matches_scan():
+    """The GPU LPC kernel (Pallas, Triton route) is bit-identical to the
+    lax.scan reference, here in interpret mode: lane and step counts that
+    are not multiples of its block exercise the wrapper's padding."""
+    from audio_formats_tpu.ops import lpc
+
+    args = _lpc_case(11, 13, 777)
+    a = np.asarray(lpc.flac_lpc_scan(*args))
+    b = np.asarray(lpc.flac_lpc_pallas(*args, interpret=True))
     np.testing.assert_array_equal(a, b)
+
+
+def test_pallas_lpc_sharded_runs_per_shard(cpu_mesh_devices):
+    """A lane-sharded batch runs the kernel under shard_map, one shard per
+    device, with the same result as the unsharded scan."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from audio_formats_tpu.ops import lpc
+    from audio_formats_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, data=4, model=1, devices=cpu_mesh_devices)
+    args = _lpc_case(5, 4 * 24, 136)
+    placed = [jax.device_put(x, NamedSharding(mesh, P("data")))
+              for x in args]
+    got = lpc.flac_lpc_pallas(*placed, interpret=True)
+    assert got.sharding.spec[0] == "data"
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np.asarray(lpc.flac_lpc_scan(*args)))
+
+
+def test_lpc_dispatch_by_platform(monkeypatch):
+    """flac_lpc picks the scan on cpu and the kernel on gpu, and never
+    swallows a kernel failure into a fallback."""
+    from audio_formats_tpu.ops import lpc
+
+    args = _lpc_case(3, 5, 64)
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel called")
+
+    monkeypatch.setattr(lpc, "flac_lpc_pallas", boom)
+    assert lpc.default_platform() == "cpu"
+    np.testing.assert_array_equal(np.asarray(lpc.flac_lpc(*args)),
+                                  np.asarray(lpc.flac_lpc_scan(*args)))
+    monkeypatch.setattr(lpc, "default_platform", lambda: "gpu")
+    with pytest.raises(RuntimeError, match="kernel called"):
+        lpc.flac_lpc(*args)
+
+
+def _exact_lanes(seed, L, B, bits):
+    """Residuals of a random signal of `bits` bits per sample under random
+    FLAC predictors (coefficients of up to 15 bits, shift 0..15), computed
+    in int64: the lanes need drflac's 64-bit prediction."""
+    rng = np.random.default_rng(seed)
+    lim = 1 << (bits - 1)
+    sig = rng.integers(-lim, lim, (L, B)).astype(np.int64)
+    order = rng.integers(1, 33, L).astype(np.int32)
+    shift = rng.integers(0, 16, L).astype(np.int32)
+    coeffs = np.zeros((L, 32), np.int32)
+    for l in range(L):
+        coeffs[l, : order[l]] = rng.integers(-(1 << 14), 1 << 14, order[l])
+    residual = sig.copy()
+    for t in range(B):
+        hist = np.zeros((L, 32), np.int64)  # hist[:, j] = s[t-1-j]
+        k = min(t, 32)
+        hist[:, :k] = sig[:, t - k : t][:, ::-1]
+        pred = (hist * coeffs).sum(axis=1) >> shift
+        residual[:, t] = np.where(t < order, sig[:, t], sig[:, t] - pred)
+    keep = np.abs(residual).max(axis=1) < (1 << 31)
+    return (residual[keep].astype(np.int32), coeffs[keep], order[keep],
+            shift[keep], sig[keep])
+
+
+@pytest.mark.parametrize("impl", ["scan", "kernel"])
+@pytest.mark.parametrize("bits", [17, 18])
+def test_lpc_exact_lanes_match_int64(impl, bits):
+    """Lanes above 16 bps (drflac's 64-bit prediction) through the int32
+    limb split equal the int64 reference and the original signal, up to
+    the 18-bit limit models/flac.py routes to the device."""
+    from audio_formats_tpu.ops import lpc
+
+    residual, coeffs, order, shift, sig = _exact_lanes(bits, 12, 96, bits)
+    assert len(sig) >= 6
+    exact = np.ones(len(sig), bool)
+    ref = lpc.flac_lpc_np(residual, coeffs, order, shift)
+    np.testing.assert_array_equal(ref, sig)
+    if impl == "scan":
+        got = lpc.flac_lpc_scan(residual, coeffs, order, shift, exact)
+    else:
+        got = lpc.flac_lpc_pallas(residual, coeffs, order, shift, exact,
+                                  interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), sig)
+
+
+@pytest.mark.gpu
+def test_lpc_kernel_compiled_matches_scan(gpu_device):
+    """The kernel as compiled for the card equals the scan."""
+    from audio_formats_tpu.ops import lpc
+
+    args = _lpc_case(17, 300, 1100)
+    np.testing.assert_array_equal(
+        np.asarray(lpc.flac_lpc_pallas(*args)),
+        np.asarray(lpc.flac_lpc_scan(*args)))
 
 
 def test_mixed_wide_device_frames_keep_order(rng):

@@ -1,5 +1,5 @@
-"""Prove the bench accuracy gauge can FAIL (VERDICT r3 weak #6: a gauge
-row that has never been shown able to fail proves nothing).  A one-part-
+"""Prove the bench accuracy gauge can FAIL (a gauge row that has never
+been shown able to fail proves nothing).  A one-part-
 in-10^4 perturbation of a CELT constant must flip the CELT row's ok flag;
 reverting the constant must restore it.  Runs the gauge exactly as
 bench.py does (same fixtures, same bounds)."""

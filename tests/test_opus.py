@@ -194,7 +194,7 @@ def test_mapping_family2_channel_count_guard():
                 struct.pack("<H", 0) + struct.pack("<I", 48000) +
                 struct.pack("<h", 0) + bytes([2]) +
                 bytes([streams, coupled]) + bytes(cmap))
-        vendor = b"af-tpu"
+        vendor = b"af-ref"
         tags = (b"OpusTags" + struct.pack("<I", len(vendor)) + vendor +
                 struct.pack("<I", 0))
         pkt, n = opus_ref.silence_packet()

@@ -391,7 +391,7 @@ def test_multistream_surround_51():
     head = (b"OpusHead" + bytes([1, CH]) + struct.pack("<H", 312) +
             struct.pack("<I", 48000) + struct.pack("<h", 0) + bytes([1]) +
             bytes([streams, coupled]) + bytes(mapping))
-    vendor = b"af-tpu"
+    vendor = b"af-ref"
     tags = (b"OpusTags" + struct.pack("<I", len(vendor)) + vendor +
             struct.pack("<I", 0))
     serial = 99
@@ -730,7 +730,7 @@ def test_multistream_silk_eos_drain():
     head = (b"OpusHead" + bytes([1, CH]) + struct.pack("<H", 312) +
             struct.pack("<I", 48000) + struct.pack("<h", 0) + bytes([1]) +
             bytes([streams, coupled]) + bytes(mapping))
-    vendor = b"af-tpu"
+    vendor = b"af-ref"
     tags = (b"OpusTags" + struct.pack("<I", len(vendor)) + vendor +
             struct.pack("<I", 0))
     pages = [aogg.build_page([head], 99, 0, 0, bos=True),

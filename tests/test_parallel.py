@@ -113,3 +113,18 @@ def test_opus_celt_lockstep_matches_facade():
     for o in outs:
         o = np.asarray(o)[: len(ref)]
         assert np.abs(o - ref).max() < 1e-6
+
+
+def test_make_mesh_raises_when_devices_are_short():
+    """A mesh larger than the devices given (or the default platform's)
+    raises; it is never filled with devices of another platform."""
+    import pytest
+
+    cpus = jax.devices("cpu")
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        make_mesh(16, devices=cpus)
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        make_mesh(8, data=8, model=2, devices=cpus)
+    mesh = make_mesh(4, data=2, model=2, devices=cpus)
+    assert mesh.devices.shape == (2, 2)
+    assert {d.platform for d in mesh.devices.flat} == {"cpu"}

@@ -158,21 +158,26 @@ def test_probe_rejects_corrupt_magic():
     assert s.is_error()
 
 
-def test_pallas_lms_matches_scan():
-    """The Pallas LMS decode kernel must be bit-identical to the lax.scan
-    reference (interpret mode on CPU; compiled on TPU backends)."""
+def test_lms_scan_matches_golden_lms():
+    """The device LMS decode scan equals the golden per-sample predictor
+    and sign-sign update (qoa_ref.Lms), wraparound included."""
     import numpy as np
 
-    from audio_formats_tpu.ops import lms
-    from audio_formats_tpu.ops.lpc import default_platform
+    from golden import qoa_ref
 
     rng = np.random.default_rng(7)
     L, T = 9, 641
     history = rng.integers(-32768, 32768, (L, 4)).astype(np.int32)
     weights = rng.integers(-(1 << 14), 1 << 14, (L, 4)).astype(np.int32)
     deq = rng.integers(-2000, 2000, (L, T)).astype(np.int32)
-    a = np.asarray(lms.qoa_decode_scan(history, weights, deq))
-    interp = default_platform() == "cpu"
-    b = np.asarray(lms.qoa_decode_pallas(history, weights, deq,
-                                         interpret=interp))
-    np.testing.assert_array_equal(a, b)
+    got = np.asarray(lms_ops.qoa_decode_scan(history, weights, deq))
+    for lane in range(L):
+        lms = qoa_ref.Lms()
+        lms.history = [int(v) for v in history[lane]]
+        lms.weights = [int(v) for v in weights[lane]]
+        ref = []
+        for r in deq[lane]:
+            s = qoa_ref._clamp_s16(lms.predict() + int(r))
+            lms.update(s, int(r))
+            ref.append(s)
+        np.testing.assert_array_equal(got[lane], ref)

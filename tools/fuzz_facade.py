@@ -14,7 +14,6 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/af_tpu_jax_cache")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -59,6 +58,9 @@ def _mutate(data: bytes, rng) -> bytes:
 
 
 def main():
+    from audio_formats_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     iters = int(sys.argv[1]) if len(sys.argv) > 1 else 200
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
     rng = np.random.default_rng(seed)

@@ -7,7 +7,7 @@ vectors pcm_t[32]:   pcm_t = Σ_{r=0..16} W_r · S_{t-r}.
 
 Rather than translating the reference's hand-scheduled scalar FIFO code, we
 express the filterbank in its mathematically canonical conv form — ideal for
-the TPU MXU: an unfold + one matmul per granule.  This script recovers the
+matrix units: an unfold + one matmul per granule.  This script recovers the
 17 W_r matrices numerically: it runs a minimal, faithful simulation of the
 reference's synthesis chain (ISO/IEC 11172-3 DCT-II matrixing and Table B.3
 window, as laid out in minimp3) on unit impulses and records the responses.

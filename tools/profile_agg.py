@@ -14,16 +14,13 @@ sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
 
 os.environ.setdefault("AF_TPU_MP3_POOL_BITS", "1")
-import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/af_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
 import bench  # noqa: E402
+from audio_formats_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402,E501
 from audio_formats_tpu.parallel import BatchDecoder  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--mp3", type=int, default=512)
     ap.add_argument("--flac", type=int, default=512)
